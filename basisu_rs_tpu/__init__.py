@@ -1,55 +1,37 @@
-"""basisu_rs_tpu: a TPU-native Basis Universal texture transcoder.
+"""Former name of the `basisu_rs_jax` package, kept so that existing imports
+and `python -m` invocations go on working.  Importing it warns once; it and
+every submodule under it are the very module objects of `basisu_rs_jax`."""
 
-A from-scratch rebuild of the basisu_rs reference's capabilities as a batch
-transcoder for ML/asset pipelines: .basis container parsing and BasisLZ
-entropy decode run on host; the per-4x4-block hot loops (UASTC field decode,
-ETC1S dequant, repacking into BC7/ASTC/ETC1/ETC2/RGBA32) run as vectorized
-int32 lane kernels on TPU via JAX/XLA/Pallas, sharded across chips by slice.
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-Public API mirrors the reference crate surface (src/lib.rs:20-53):
-  block level:  unpack_uastc_block_to_rgba, transcode_uastc_block_to_*
-  batch level:  transcode_uastc_blocks (the TPU-native extension)
-  file level:   read_to_rgba/etc1/etc2/uastc/astc/bc7, Header, Image
-"""
+import basisu_rs_jax
+from basisu_rs_jax import *  # noqa: F401,F403
+from basisu_rs_jax import __all__, __version__  # noqa: F401
 
-from .api import (
-    BasisError,
-    Image,
-    transcode_uastc_block_to_astc,
-    transcode_uastc_block_to_bc7,
-    transcode_uastc_block_to_etc1,
-    transcode_uastc_block_to_etc2,
-    transcode_uastc_blocks,
-    unpack_uastc_block_to_rgba,
-)
-from .container.basis import (
-    Header,
-    SliceDesc,
-    read_to_astc,
-    read_to_bc7,
-    read_to_etc1,
-    read_to_etc2,
-    read_to_rgba,
-    read_to_uastc,
-)
+_NEW = basisu_rs_jax.__name__
 
-__version__ = "0.1.0"
 
-__all__ = [
-    "BasisError",
-    "Header",
-    "Image",
-    "SliceDesc",
-    "read_to_astc",
-    "read_to_bc7",
-    "read_to_etc1",
-    "read_to_etc2",
-    "read_to_rgba",
-    "read_to_uastc",
-    "transcode_uastc_block_to_astc",
-    "transcode_uastc_block_to_bc7",
-    "transcode_uastc_block_to_etc1",
-    "transcode_uastc_block_to_etc2",
-    "transcode_uastc_blocks",
-    "unpack_uastc_block_to_rgba",
-]
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Loads `<former name>.x.y` as `basisu_rs_jax.x.y`."""
+
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname.startswith(__name__ + ".") and fullname != __name__ + ".__main__":
+            return importlib.util.spec_from_loader(fullname, self)
+        return None
+
+    def create_module(self, spec):
+        return None
+
+    def exec_module(self, module):
+        # the import system re-reads sys.modules after exec_module, so the
+        # alias resolves to the real module and its __spec__ stays its own
+        sys.modules[module.__name__] = importlib.import_module(_NEW + module.__name__[len(__name__):])
+
+
+sys.meta_path.insert(0, _Alias())
+warnings.warn(f"{__name__} is now {_NEW}; import {_NEW} instead",
+              DeprecationWarning, stacklevel=2)

@@ -12,7 +12,7 @@ Transcribed line-by-line from:
   - /root/reference/src/target_formats/etc.rs:343-468 (ETC helpers)
   - /root/reference/src/basis.rs:8-90,262-298   (file walk)
 
-This module deliberately shares NO code with basisu_rs_tpu (no imports from
+This module deliberately shares NO code with basisu_rs_jax (no imports from
 the package): it is a second, naive, sequential implementation whose value is
 exactly its independence.  Do not refactor it to reuse package helpers.
 """
@@ -511,7 +511,7 @@ def oracle_make_decoder(buf: bytes, quirk_endpoint_count: bool = False) -> Oracl
     quirk_endpoint_count=True replicates the reference verbatim, which passes
     `total_selectors` as the endpoint count (basis.rs:290-291).  The default
     (False) uses `total_endpoints`, which is what files from the official
-    encoder require and what basisu_rs_tpu implements; see COMPAT.md."""
+    encoder require and what basisu_rs_jax implements; see COMPAT.md."""
     h = _oracle_header(buf)
     ep_count = h["total_selectors"] if quirk_endpoint_count else h["total_endpoints"]
     return OracleEtc1sDecoder(

@@ -16,7 +16,7 @@ Transcribed line-by-line from:
     patterns, anchors)
   - /root/reference/src/target_formats/astc.rs:300-331 (BISE_RANGES)
 
-This module deliberately shares NO code with basisu_rs_tpu (no imports from
+This module deliberately shares NO code with basisu_rs_jax (no imports from
 the package): it is a second, naive, sequential implementation whose value is
 exactly its independence.  Do not refactor it to reuse package helpers.
 """

@@ -5,9 +5,8 @@ Round-4 verdict item 7: the asserted ratio band used to be a hard-coded
 speedup failed CI by design with the re-pin procedure buried in a
 docstring.  This module makes the re-pin mechanical:
 
-- The quiet decode/calib ratio for THIS machine is cached next to the
-  Pallas tile autotune cache (`.jax_cache/perf_band_<machine>.json`,
-  mirroring ops/pallas_kernels.tile_cache_path).
+- The quiet decode/calib ratio for THIS machine is cached in the
+  checkout's `.jax_cache/perf_band_<machine>.json`.
 - The operating band derives from the cached quiet ratio:
   floor = 0.63 x quiet (a genuine 2x decode regression lands at
   0.5 x quiet, safely below), ceiling = 1.25 x quiet (observed

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-import basisu_rs_tpu as basisu
+import basisu_rs_jax as basisu
 
 
 def test_block_level_functions_match_golden(golden):
@@ -29,7 +29,7 @@ def test_invalid_mode_message():
 
 def test_invalid_pattern_message():
     # mode 2 with out-of-range 5-bit pattern index (see test_golden_blocks)
-    from basisu_rs_tpu.tables import MODES
+    from basisu_rs_jax.tables import MODES
 
     cfg = MODES[2]
     block = bytearray(16)
@@ -49,7 +49,7 @@ def test_wrong_block_size_rejected():
 
 def test_odd_orig_size_metadata(tmp_path, golden):
     # orig size smaller than the padded block grid is metadata-only
-    from basisu_rs_tpu.container.writer import write_uastc_basis
+    from basisu_rs_jax.container.writer import write_uastc_basis
 
     buf = write_uastc_basis(
         [dict(blocks=golden["bc7_in"][:24], nbx=6, nby=4, orig_width=23, orig_height=13)]

@@ -10,7 +10,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from basisu_rs_tpu.ops.bits import (
+from basisu_rs_jax.ops.bits import (
     LaneWriter,
     bitrev,
     bytes_from_lanes_np,
@@ -70,7 +70,7 @@ def test_extract_dyn_matches_static(count):
 def test_extract_bit_dyn_matches_static():
     """extract_bit_dyn == extract(., ., 1) for every offset, under every
     bit_range that contains it (the range only prunes word selects)."""
-    from basisu_rs_tpu.ops.bits import extract_bit_dyn
+    from basisu_rs_jax.ops.bits import extract_bit_dyn
 
     ps = patterns()
     lanes = jnp.asarray(np.concatenate([int_to_lanes(p) for p in ps], axis=0))
@@ -132,22 +132,19 @@ def test_lane_byte_round_trip():
     np.testing.assert_array_equal(bytes_from_lanes_np(lanes), b)
 
 
-def test_gather_chunked_matches_numpy():
-    """gather_chunked == table[idx] for 1..N-chunk tables, including the
-    chunk-boundary indices (0, 127, 128, last) the promise-in-bounds takes
-    must still handle exactly (indices are in-bounds by construction; the
-    rewrite dropped take_along_axis's wrap/fill normalization)."""
-    from basisu_rs_tpu.ops.bits import gather_chunked
+def test_lut_lookup_integer_and_float_tables():
+    """Integer tables keep their low 32 bits as int32 (uint32 words with the
+    top bit set, int64 sources); float32 tables pass through unchanged."""
+    from basisu_rs_jax.ops.bits import lut_lookup
 
-    rng = np.random.default_rng(7)
-    for chunks in (1, 2, 3, 16):
-        table = rng.integers(0, 1 << 32, size=(chunks, 128), dtype=np.uint64)
-        table = table.astype(np.uint32)
-        hi = chunks * 128 - 1
-        idx = rng.integers(0, chunks * 128, size=(4, 128), dtype=np.int64)
-        idx[0, :4] = [0, 127, min(128, hi), hi]
-        idx = idx.astype(np.int32)
-        got = np.asarray(gather_chunked(jnp.asarray(table), jnp.asarray(idx)))
-        np.testing.assert_array_equal(
-            got, table.reshape(-1)[idx], err_msg=f"chunks={chunks}"
-        )
+    words = np.array([0, 1, 0xFFFFFFFF, 0x80000000], np.uint32)
+    idx = jnp.asarray(np.array([[3, 2], [1, 0]], np.int32))
+    got = np.asarray(lut_lookup(words, idx))
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got.view(np.uint32), words[np.asarray(idx)])
+    wide = np.array([1 << 40 | 7, -1], np.int64)
+    np.testing.assert_array_equal(np.asarray(lut_lookup(wide, jnp.arange(2))), [7, -1])
+    f = np.array([0.5, 1 / 3], np.float32)
+    got = np.asarray(lut_lookup(f, jnp.asarray([1, 0])))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, f[[1, 0]])

@@ -4,8 +4,8 @@ import json
 
 import numpy as np
 
-from basisu_rs_tpu.__main__ import main
-from basisu_rs_tpu.container.writer import write_uastc_basis
+from basisu_rs_jax.__main__ import main
+from basisu_rs_jax.container.writer import write_uastc_basis
 
 
 def _make_file(tmp_path, golden):
@@ -31,7 +31,7 @@ def test_cli_transcode(tmp_path, golden, capsys):
     out_dir = tmp_path / "out"
     assert main(["transcode", str(f), "--target", "bc7", "-o", str(out_dir)]) == 0
     data = np.fromfile(out_dir / "t_0.bc7.bin", np.uint8).reshape(-1, 16)
-    from basisu_rs_tpu.ops import transcode_blocks
+    from basisu_rs_jax.ops import transcode_blocks
 
     expected, _ = transcode_blocks(golden["bc7_in"][:24], "bc7")
     np.testing.assert_array_equal(data, expected)
@@ -47,7 +47,7 @@ def test_cli_transcode_mesh(tmp_path, golden):
         ["transcode", str(f), "--target", "bc7", "--mesh", "8", "-o", str(out_dir)]
     ) == 0
     data = np.fromfile(out_dir / "t_0.bc7.bin", np.uint8).reshape(-1, 16)
-    from basisu_rs_tpu.ops import transcode_blocks
+    from basisu_rs_jax.ops import transcode_blocks
 
     expected, _ = transcode_blocks(golden["bc7_in"][:24], "bc7")
     np.testing.assert_array_equal(data, expected)

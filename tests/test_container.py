@@ -8,7 +8,7 @@ writer and check full-file decodes against independently computed expecteds.
 import numpy as np
 import pytest
 
-from basisu_rs_tpu import (
+from basisu_rs_jax import (
     BasisError,
     read_to_astc,
     read_to_bc7,
@@ -17,8 +17,8 @@ from basisu_rs_tpu import (
     read_to_rgba,
     read_to_uastc,
 )
-from basisu_rs_tpu.container.writer import write_etc1s_basis, write_uastc_basis
-from basisu_rs_tpu.ops import transcode_blocks
+from basisu_rs_jax.container.writer import write_etc1s_basis, write_uastc_basis
+from basisu_rs_jax.ops import transcode_blocks
 
 ETC1_MODIFIERS = [
     [-8, -2, 2, 8], [-17, -5, 5, 17], [-29, -9, 9, 29], [-42, -13, 13, 42],
@@ -146,7 +146,7 @@ def test_file_level_invalid_block_messages(uastc_file):
     """read_to_* aborts with the FIRST failing block's own message, exactly
     as the reference's transcode loop propagates it (uastc.rs:148-165 with
     the two per-block Err sites uastc.rs:336 and uastc.rs:364)."""
-    from basisu_rs_tpu.tables import MODES
+    from basisu_rs_jax.tables import MODES
 
     blocks, _ = uastc_file
     # first failing block = invalid mode (MODE_LUT entry 19)
@@ -235,8 +235,8 @@ def test_etc1s_mip_chain_single_launch(etc1s_setup, monkeypatch):
     read_to_etc1 concatenate them into ONE run_etc1s_* call (the per-slice
     loop of basis.rs:26-86 would pay a launch + pow2 pad per mip tail), and
     the split-back outputs stay bit-identical to per-slice decodes."""
-    import basisu_rs_tpu.container.basis as basis_mod
-    from basisu_rs_tpu.ops.etc1s import run_etc1s_etc1, run_etc1s_rgba
+    import basisu_rs_jax.container.basis as basis_mod
+    from basisu_rs_jax.ops.etc1s import run_etc1s_etc1, run_etc1s_rgba
 
     endpoints, selectors, _, _, _, _ = etc1s_setup
     rng = np.random.default_rng(11)
@@ -327,7 +327,7 @@ def test_etc1s_unsupported_targets_raise(etc1s_setup):
     """COMPAT.md item 3: ETC1S->{ETC2,ASTC,BC7,UASTC} are unimplemented!()
     panics in the reference (basis.rs:141,171,200,229,258); here they raise
     a catchable BasisError with the shared unsupported-format message."""
-    from basisu_rs_tpu.container.basis import read_to_astc, read_to_etc2, read_to_uastc
+    from basisu_rs_jax.container.basis import read_to_astc, read_to_etc2, read_to_uastc
 
     endpoints, selectors, ep_idx, sel_idx, nbx, nby = etc1s_setup
     buf = write_etc1s_basis(
@@ -342,7 +342,7 @@ def test_etc1s_unsupported_targets_raise(etc1s_setup):
 
 def test_image_into_rgba_bytes(golden):
     """Image::into_rgba_bytes parity (reference: src/lib.rs:70-79)."""
-    from basisu_rs_tpu.api import Image, transcode_uastc_blocks
+    from basisu_rs_jax.api import Image, transcode_uastc_blocks
 
     blocks = golden["rgba_in"][:4]
     texels, err = transcode_uastc_blocks(blocks, "rgba")
@@ -361,7 +361,7 @@ def test_file_api_mesh_parity(uastc_file, etc1s_setup):
     """read_to_*(buf, mesh=...) shards the device work over the mesh and
     reproduces the single-device output bit-exactly - UASTC targets, ETC1S
     RGBA with alpha pairing, and ETC1S ETC1."""
-    from basisu_rs_tpu.parallel.mesh import make_mesh
+    from basisu_rs_jax.parallel.mesh import make_mesh
 
     mesh = make_mesh(8)
 
@@ -401,3 +401,44 @@ def test_file_api_mesh_parity(uastc_file, etc1s_setup):
     plain = read_to_etc1(ebuf1)
     sharded = read_to_etc1(ebuf1, mesh=mesh)
     np.testing.assert_array_equal(plain[0].data, sharded[0].data)
+
+
+def test_uastc_mip_chain_single_dispatch(golden, monkeypatch):
+    """Every slice of a UASTC file (here a 6-level mip chain) goes through
+    ONE partitioned dispatch per read_to_* call, split back per slice
+    bit-exactly."""
+    import basisu_rs_jax.container.basis as basis_mod
+
+    blocks = golden["bc7_in"]
+    slices, ofs = [], 0
+    for lvl in range(6):
+        w = max(1, 32 >> lvl)
+        nb = -(-w // 4)
+        slices.append(dict(blocks=blocks[ofs : ofs + nb * nb], nbx=nb, nby=nb,
+                           orig_width=w, orig_height=w, level_index=lvl, image_index=0))
+        ofs += nb * nb
+    buf = write_uastc_basis(slices)
+    calls = []
+    real = basis_mod.transcode_blocks
+    monkeypatch.setattr(basis_mod, "transcode_blocks",
+                        lambda b, t: (calls.append(len(b)), real(b, t))[1])
+    images = read_to_bc7(buf)
+    assert calls == [ofs]
+    for img, s in zip(images, slices):
+        np.testing.assert_array_equal(img.data, real(s["blocks"], "bc7")[0].reshape(-1))
+
+
+def test_uastc_error_order_across_slices(uastc_file):
+    """An invalid block in slice 0 wins over a truncated slice 1, as the
+    reference's per-slice loop would report it (basis.rs:92-260); a file
+    whose only fault is the truncated slice reports that."""
+    blocks, _ = uastc_file
+    dims = dict(nbx=6, nby=4, orig_width=24, orig_height=16)
+    bad = np.array(blocks, np.uint8)
+    bad[0] = 0
+    bad[0][0] = 69
+    truncated = dict(blocks=np.zeros(16 * 24 - 1, np.uint8), **dims)
+    with pytest.raises(BasisError, match="^invalid mode index$"):
+        read_to_bc7(write_uastc_basis([dict(blocks=bad, **dims), truncated]))
+    with pytest.raises(BasisError, match="divisible by UASTC block size"):
+        read_to_bc7(write_uastc_basis([dict(blocks=blocks, **dims), truncated]))

@@ -5,9 +5,9 @@ against the encoder's decoder-simulation, on both front-ends."""
 import numpy as np
 import pytest
 
-from basisu_rs_tpu.container.basis import make_etc1s_decoder, read_header, read_slice_descs
-from basisu_rs_tpu.container.etc1s_frontend import Etc1sDecoder
-from basisu_rs_tpu.container.writer import write_etc1s_basis_fuzz
+from basisu_rs_jax.container.basis import make_etc1s_decoder, read_header, read_slice_descs
+from basisu_rs_jax.container.etc1s_frontend import Etc1sDecoder
+from basisu_rs_jax.container.writer import write_etc1s_basis_fuzz
 
 
 def _codebooks(rng, e, s):
@@ -52,9 +52,9 @@ def test_internal_asserts_are_catchable_basis_errors():
     violations and out-of-range decoded indices (mod.rs:303-310, 443-444) -
     the process aborts.  This build surfaces them as Etc1sError, a catchable
     BasisError subclass (COMPAT.md item 5), on both front-ends."""
-    from basisu_rs_tpu.api import BasisError
-    from basisu_rs_tpu.container.etc1s_frontend import Etc1sError
-    from basisu_rs_tpu.container.writer import (
+    from basisu_rs_jax.api import BasisError
+    from basisu_rs_jax.container.etc1s_frontend import Etc1sError
+    from basisu_rs_jax.container.writer import (
         BitWriterLsb,
         encode_etc1s_endpoint_codebook,
         encode_etc1s_selector_codebook,

@@ -2,7 +2,7 @@
 
 The oracle (tests/oracle_etc1s.py) is an independent transcription of the
 reference decoder (/root/reference/src/basis_lz/mod.rs + huffman.rs) sharing
-no code with basisu_rs_tpu.  These tests compare full-file outputs of the
+no code with basisu_rs_jax.  These tests compare full-file outputs of the
 package against oracle-derived expected values over the synthetic + fuzz
 corpus, covering video frames, history-buffer MTF, RLE runs, and the
 basis.rs:290 endpoint-count quirk (reference analog: tests/corpus_tests.rs).
@@ -11,14 +11,14 @@ basis.rs:290 endpoint-count quirk (reference analog: tests/corpus_tests.rs).
 import numpy as np
 import pytest
 
-from basisu_rs_tpu.container.basis import (
+from basisu_rs_jax.container.basis import (
     make_etc1s_decoder,
     read_header,
     read_slice_descs,
     read_to_etc1,
     read_to_rgba,
 )
-from basisu_rs_tpu.container.writer import write_etc1s_basis, write_etc1s_basis_fuzz
+from basisu_rs_jax.container.writer import write_etc1s_basis, write_etc1s_basis_fuzz
 
 from oracle_etc1s import (
     OracleError,

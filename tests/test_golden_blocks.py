@@ -8,7 +8,7 @@ bit-exactness oracle required by BASELINE.md.
 import numpy as np
 import pytest
 
-from basisu_rs_tpu.ops import transcode_blocks
+from basisu_rs_jax.ops import transcode_blocks
 
 TARGETS = ["rgba", "astc", "bc7", "etc1", "etc2"]
 
@@ -40,8 +40,8 @@ def test_invalid_mode_flagged():
 
 def test_invalid_pattern_flagged():
     # Mode 2 (code_size 5, pattern at a known offset) with pattern index >= 30.
-    from basisu_rs_tpu.ops.dispatch import block_modes
-    from basisu_rs_tpu.tables import MODES
+    from basisu_rs_jax.ops.dispatch import block_modes
+    from basisu_rs_jax.tables import MODES
 
     cfg = MODES[2]
     block = np.zeros((1, 16), np.uint8)

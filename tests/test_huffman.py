@@ -4,13 +4,13 @@ assignment, error paths (mirroring the reference's validation behavior)."""
 import numpy as np
 import pytest
 
-from basisu_rs_tpu.container.huffman import (
+from basisu_rs_jax.container.huffman import (
     HuffmanDecodingTable,
     HuffmanError,
     read_huffman_table,
 )
-from basisu_rs_tpu.container.writer import CanonicalEncoder, equal_length_sizes, write_huffman_table
-from basisu_rs_tpu.utils.bitio import BitReaderLsb, BitWriterLsb
+from basisu_rs_jax.container.writer import CanonicalEncoder, equal_length_sizes, write_huffman_table
+from basisu_rs_jax.utils.bitio import BitReaderLsb, BitWriterLsb
 
 
 def random_code_sizes(rng, n_syms: int) -> list[int]:
@@ -90,3 +90,20 @@ def test_bit_writer_round_trip():
     r = BitReaderLsb(w.getvalue())
     for count, v in fields:
         assert r.read(count) == v
+
+
+def test_pack_codes_lsb_matches_bit_writer():
+    """The writer's bulk code packer emits exactly the stream a
+    BitWriterLsb writing the same codes one by one holds (length-0 codes
+    emit nothing)."""
+    from basisu_rs_jax.container.writer import pack_codes_lsb
+
+    rng = np.random.default_rng(3)
+    sizes = rng.integers(0, 17, 5000)
+    codes = rng.integers(0, 1 << 16, 5000) & ((1 << sizes) - 1)
+    w = BitWriterLsb()
+    for c, n in zip(codes, sizes):
+        if n:
+            w.write(int(n), int(c))
+    assert pack_codes_lsb(codes, sizes) == w.getvalue()
+    assert pack_codes_lsb(np.zeros(0), np.zeros(0)) == b""

@@ -12,8 +12,8 @@ import struct
 import numpy as np
 import pytest
 
-from basisu_rs_tpu.container.ktx2 import write_ktx2
-from tests.test_ktx import _basis_with_mips
+from basisu_rs_jax.container.ktx2 import write_ktx2
+from test_ktx import _basis_with_mips
 
 IDENT = bytes([0xAB, 0x4B, 0x54, 0x58, 0x20, 0x32, 0x30, 0xBB, 0x0D, 0x0A, 0x1A, 0x0A])
 
@@ -33,7 +33,7 @@ def _parse(blob):
 
 
 def test_ktx2_bc7_mip_chain_layout():
-    from basisu_rs_tpu import read_to_bc7
+    from basisu_rs_jax import read_to_bc7
 
     images = read_to_bc7(_basis_with_mips())
     chain = images[:2]  # 8x8 + 4x4
@@ -61,7 +61,7 @@ def test_ktx2_bc7_mip_chain_layout():
 
 
 def test_ktx2_dfd_basic_block():
-    from basisu_rs_tpu import read_to_etc2
+    from basisu_rs_jax import read_to_etc2
 
     images = read_to_etc2(_basis_with_mips())
     blob = write_ktx2([images[2]], "etc2")
@@ -90,7 +90,7 @@ def test_ktx2_dfd_basic_block():
 
 
 def test_ktx2_rgba_rows_and_alignment():
-    from basisu_rs_tpu import read_to_rgba
+    from basisu_rs_jax import read_to_rgba
 
     _, images = read_to_rgba(_basis_with_mips())
     img = images[2]  # 3x3 inside a 4x4 block: exercises stride cropping
@@ -107,7 +107,7 @@ def test_ktx2_rgba_rows_and_alignment():
 
 
 def test_ktx2_rejects_bad_inputs():
-    from basisu_rs_tpu import read_to_bc7
+    from basisu_rs_jax import read_to_bc7
 
     images = read_to_bc7(_basis_with_mips())
     with pytest.raises(ValueError):
@@ -119,7 +119,7 @@ def test_ktx2_rejects_bad_inputs():
 
 
 def test_cli_transcode_ktx2(tmp_path):
-    from basisu_rs_tpu.__main__ import main
+    from basisu_rs_jax.__main__ import main
 
     src = tmp_path / "tex.basis"
     src.write_bytes(_basis_with_mips())
@@ -137,14 +137,14 @@ def test_ktx2_round_trips_through_independent_reader():
     independent spec-first parser with strict structural validation (level
     alignment/coverage/no-overlap, DFD sample layout, KVD entries) - and
     compare payloads byte-for-byte (round-3 verdict stretch item 9)."""
-    from basisu_rs_tpu import (
+    from basisu_rs_jax import (
         read_to_astc,
         read_to_bc7,
         read_to_etc1,
         read_to_etc2,
         read_to_rgba,
     )
-    from tests.ktx2_reader import read_ktx2
+    from ktx2_reader import read_ktx2
 
     buf = _basis_with_mips()
     for target, reader in (
@@ -161,7 +161,7 @@ def test_ktx2_round_trips_through_independent_reader():
         parsed = read_ktx2(write_ktx2(chain, target))
         assert (parsed.width, parsed.height) == (chain[0].w, chain[0].h)
         assert len(parsed.levels) == 2
-        assert parsed.kvd["KTXwriter"].rstrip(b"\x00") == b"basisu_rs_tpu"
+        assert parsed.kvd["KTXwriter"].rstrip(b"\x00") == b"basisu_rs_jax"
         for lvl, img in enumerate(chain):
             if target == "rgba":
                 data = np.asarray(img.data, np.uint8)
@@ -177,8 +177,8 @@ def test_ktx2_round_trips_through_independent_reader():
 def test_ktx2_reader_rejects_corruption():
     """The independent reader's validation actually bites: flip structural
     fields and expect rejection."""
-    from basisu_rs_tpu import read_to_bc7
-    from tests.ktx2_reader import read_ktx2
+    from basisu_rs_jax import read_to_bc7
+    from ktx2_reader import read_ktx2
 
     images = read_to_bc7(_basis_with_mips())
     blob = bytearray(write_ktx2(images[:2], "bc7"))

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from basisu_rs_tpu.models import CorpusTranscoder, UastcTranscoder
-from basisu_rs_tpu.ops import transcode_blocks
+from basisu_rs_jax.models import CorpusTranscoder, UastcTranscoder
+from basisu_rs_jax.ops import transcode_blocks
 
 
 def test_uastc_transcoder_matches_dispatch(golden):
@@ -32,8 +32,8 @@ def test_etc1s_corpus_transcoder_matches_per_slice():
     """Etc1sCorpusTranscoder: concatenated multi-slice dispatch splits back
     bit-identically to per-slice run_etc1s_* calls, for both targets and
     the paired-alpha RGBA path."""
-    from basisu_rs_tpu.models import Etc1sCorpusTranscoder
-    from basisu_rs_tpu.ops.etc1s import run_etc1s_etc1, run_etc1s_rgba
+    from basisu_rs_jax.models import Etc1sCorpusTranscoder
+    from basisu_rs_jax.ops.etc1s import run_etc1s_etc1, run_etc1s_rgba
 
     rng = np.random.default_rng(21)
     E, S = 60, 40

@@ -9,7 +9,7 @@ import textwrap
 import numpy as np
 import pytest
 
-from basisu_rs_tpu.parallel.multihost import global_stats, shard_corpus
+from basisu_rs_jax.parallel.multihost import global_stats, shard_corpus
 
 
 def test_shard_corpus_single_process_owns_all():
@@ -30,7 +30,7 @@ _WORKER = textwrap.dedent(
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-    from basisu_rs_tpu.parallel.multihost import global_stats, initialize, shard_corpus
+    from basisu_rs_jax.parallel.multihost import global_stats, initialize, shard_corpus
 
     pid = int(sys.argv[1])
     initialize(coordinator_address=sys.argv[2], num_processes=2, process_id=pid)

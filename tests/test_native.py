@@ -7,14 +7,14 @@ import numpy as np
 import pytest
 
 try:
-    from basisu_rs_tpu import native
+    from basisu_rs_jax import native
 except ImportError:  # pragma: no cover
     native = None
 
-from basisu_rs_tpu.container.basis import make_etc1s_decoder, read_header, read_slice_descs
-from basisu_rs_tpu.container.crc import crc16
-from basisu_rs_tpu.container.etc1s_frontend import Etc1sDecoder
-from basisu_rs_tpu.container.writer import write_etc1s_basis
+from basisu_rs_jax.container.basis import make_etc1s_decoder, read_header, read_slice_descs
+from basisu_rs_jax.container.crc import crc16
+from basisu_rs_jax.container.etc1s_frontend import Etc1sDecoder
+from basisu_rs_jax.container.writer import write_etc1s_basis
 
 needs_native = pytest.mark.skipif(native is None, reason="no C++ toolchain")
 
@@ -43,7 +43,7 @@ def test_native_crc_matches_python():
     rng = np.random.default_rng(0)
     data = bytes(rng.integers(0, 256, 4096, dtype=np.uint8))
     # python table path
-    from basisu_rs_tpu.container import crc as crcmod
+    from basisu_rs_jax.container import crc as crcmod
 
     tbl = crcmod._crc16_table()
     c = 0xFFFF
@@ -81,10 +81,23 @@ def test_native_frontend_matches_python(etc1s_file):
 
 @needs_native
 def test_native_rejects_global_codebooks():
-    from basisu_rs_tpu.container.etc1s_frontend import Etc1sError
-    from basisu_rs_tpu.container.writer import encode_etc1s_endpoint_codebook
+    from basisu_rs_jax.container.etc1s_frontend import Etc1sError
+    from basisu_rs_jax.container.writer import encode_etc1s_endpoint_codebook
 
     good_endpoints = encode_etc1s_endpoint_codebook(np.zeros((1, 4), np.uint8))
     bad_selectors = bytes([0b001])  # global=1
     with pytest.raises(Etc1sError, match="not supported"):
         Etc1sDecoder(1, 1, good_endpoints, bad_selectors, b"\x00" * 16)
+
+
+@needs_native
+def test_library_path_keyed_by_source(tmp_path, monkeypatch):
+    """The shared library is built under native/build/ with a name keyed by
+    the source's hash: a library built from other source is never loaded."""
+    path = native.library_path()
+    assert path.parent == native._DIR / "build" and path.exists()
+    other = tmp_path / "etc1s.cpp"
+    other.write_bytes(native._SRC.read_bytes() + b"\n// changed\n")
+    monkeypatch.setattr(native, "_SRC", other)
+    changed = native.library_path()
+    assert changed.parent == path.parent and changed.name != path.name

@@ -1,119 +1,24 @@
-"""Proofs behind the gather-free BC7 p-bit searches (ops/bc7.py).
-
-The unique-p-bit integerization is pinned in test_tables.py; this file pins
-the shared-p-bit path's arithmetic f32 division (ops/bits.fl_div255) and the
-full shared search against a direct LUT transcription of the reference
-(bc7.rs:408-475):
-
-1. host IEEE proof: both contraction orders of fl_div255 (separate rounding
-   and FMA-style single rounding of the correction add) produce fl(v/255)
-   exactly for every v in 0..255;
-2. jitted fl_div255 on the test backend matches bitwise;
-3. the gather-free determine_shared_pbits produces the same f32 error terms
-   bit-for-bit as the reference-transcribed LUT (tables/bc7_tables.pbit_luts),
-   hence identical folds and decisions;
-4. end-to-end: decisions + quantized endpoints match a LUT-based
-   reimplementation of the search over exhaustive per-channel inputs.
+"""The BC7 shared-p-bit search (ops/bc7.determine_shared_pbits) against a
+direct LUT transcription of the reference (bc7.rs:408-475): decisions and
+quantized endpoints over exhaustive per-channel inputs, on the test
+backend.  The unique-p-bit integerization is pinned in test_tables.py; why
+the shared terms are gathered rather than computed is in test_fma.py.
 """
-
-from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from basisu_rs_tpu.ops.bits import _DIV255_K, fl_div255
-from basisu_rs_tpu.tables.bc7_tables import pbit_luts
+from basisu_rs_jax.tables.bc7_tables import pbit_luts
 
 F32 = np.float32
-TRUE_DIV = (np.arange(256).astype(F32) / F32(255.0)).astype(F32)
-
-
-def test_div255_constant_is_correctly_rounded():
-    exact = Fraction(1, 2**16) / (1 - Fraction(1, 2**16))
-    assert F32(_DIV255_K) == F32(exact)
-
-
-def test_div255_host_exact_both_contraction_orders():
-    v = np.arange(256).astype(F32)
-    y0 = ((v * F32(257.0)) * F32(2.0**-16)).astype(F32)
-    k = F32(_DIV255_K)
-    # separate roundings: fl(y0 + fl(y0*K))
-    sep = (y0 + (y0 * k).astype(F32)).astype(F32)
-    np.testing.assert_array_equal(sep.view(np.int32), TRUE_DIV.view(np.int32))
-    # FMA-style: round(y0*K + y0) in one step - emulate with exact rationals
-    for i in range(256):
-        target = Fraction(float(y0[i])) * Fraction(float(k)) + Fraction(float(y0[i]))
-        got = F32(sep[i])
-        lo = np.nextafter(got, F32(-np.inf), dtype=F32)
-        hi = np.nextafter(got, F32(np.inf), dtype=F32)
-        d = abs(target - Fraction(float(got)))
-        assert d <= abs(target - Fraction(float(lo)))
-        assert d <= abs(target - Fraction(float(hi)))
-
-
-def test_div255_jit_exact_on_backend():
-    x = jnp.arange(256, dtype=jnp.int32).reshape(2, 128)
-    out = np.asarray(jax.jit(fl_div255)(x)).reshape(-1)
-    np.testing.assert_array_equal(out.view(np.int32), TRUE_DIV.view(np.int32))
-
-
-def test_div255_pallas_interpret_exact():
-    """The in-kernel form (no optimization barrier - Mosaic can't lower it
-    and doesn't reassociate) through the Pallas interpreter."""
-    from jax.experimental import pallas as pl
-
-    from basisu_rs_tpu.ops import bits
-
-    def kern(x_ref, o_ref):
-        with bits.table_mode("provide", {}):
-            o_ref[...] = bits.fl_div255(x_ref[...])
-
-    x = jnp.arange(256, dtype=jnp.int32).reshape(2, 128)
-    pf = pl.pallas_call(
-        kern, out_shape=jax.ShapeDtypeStruct((2, 128), jnp.float32), interpret=True
-    )
-    out = np.asarray(jax.jit(pf)(x)).reshape(-1)
-    np.testing.assert_array_equal(out.view(np.int32), TRUE_DIV.view(np.int32))
-
-
-def test_shared_pbit_terms_match_reference_luts():
-    """For every total_bits, p and byte v: the gather-free error term
-    (fl(scaled/255) - fl(v/255))^2 equals the reference-transcribed LUT value
-    bitwise.  Term-level equality implies identical folds and decisions for
-    every possible input combination."""
-    from basisu_rs_tpu.ops.bc7 import _scaled_half, _xq_pair
-
-    v = jnp.arange(256, dtype=jnp.int32).reshape(2, 128)
-
-    def terms(v):
-        out = []
-        for tb in range(4, 9):
-            q0c, q1c = _xq_pair(tb, v)  # clamped half-values (x = 2q + p)
-            fv = fl_div255(v)
-            for p, qc in ((0, q0c), (1, q1c)):
-                b = fl_div255(_scaled_half(tb, qc, p)) - fv
-                out.append(b * b)
-        return out
-
-    got = [np.asarray(t).reshape(-1) for t in jax.jit(terms)(v)]
-    i = 0
-    for tb in range(4, 9):
-        _, _, err_s = pbit_luts(tb)
-        for p in (0, 1):
-            np.testing.assert_array_equal(
-                got[i].view(np.int32),
-                err_s[p].view(np.int32),
-                err_msg=f"tb={tb} p={p}",
-            )
-            i += 1
 
 
 def test_determine_shared_pbits_matches_lut_reimplementation():
     """Exhaustive per-channel sweep: all (lo, hi) byte pairs through the
     3-channel search with the other channels held at adversarial values,
     against a LUT-fold reimplementation of the reference search."""
-    from basisu_rs_tpu.ops.bc7 import determine_shared_pbits
+    from basisu_rs_jax.ops.bc7 import determine_shared_pbits
 
     rng = np.random.default_rng(7)
     n = 4096

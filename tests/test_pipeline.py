@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from basisu_rs_tpu.container.writer import write_etc1s_basis, write_uastc_basis
-from basisu_rs_tpu.models.pipeline import BasisCorpusPipeline, PipelineState
+from basisu_rs_jax.container.writer import write_etc1s_basis, write_uastc_basis
+from basisu_rs_jax.models.pipeline import BasisCorpusPipeline, PipelineState
 
 
 def _make_corpus(tmp_path, golden):
@@ -65,7 +65,7 @@ def test_pipeline_resume(tmp_path, golden):
 
 
 def test_pipeline_bc7_matches_direct(tmp_path, golden):
-    from basisu_rs_tpu.ops import transcode_blocks
+    from basisu_rs_jax.ops import transcode_blocks
 
     buf = write_uastc_basis(
         [dict(blocks=golden["bc7_in"][:24], nbx=6, nby=4, orig_width=24, orig_height=16)]
@@ -80,7 +80,7 @@ def test_pipeline_bc7_matches_direct(tmp_path, golden):
 
 def test_pipeline_mesh_matches_plain(tmp_path, golden):
     """mesh= on the pipeline shards per-file device work, bit-exactly."""
-    from basisu_rs_tpu.parallel.mesh import make_mesh
+    from basisu_rs_jax.parallel.mesh import make_mesh
 
     paths = _make_corpus(tmp_path, golden)[:3]
     plain = {r.path: r for r in BasisCorpusPipeline("rgba", workers=2).run(paths)}
@@ -93,7 +93,7 @@ def test_pipeline_mesh_matches_plain(tmp_path, golden):
 
 
 def _rand_etc1s_file(rng, E, S, slice_lens, alpha=False):
-    from basisu_rs_tpu.models import Etc1sFileWork
+    from basisu_rs_jax.models import Etc1sFileWork
 
     endpoints = np.zeros((E, 4), np.uint8)
     endpoints[:, :3] = rng.integers(0, 32, (E, 3))
@@ -115,7 +115,7 @@ def _rand_etc1s_file(rng, E, S, slice_lens, alpha=False):
 def test_multifile_etc1s_matches_per_file():
     """Cross-file batched ETC1S == per-file transcode, bit-exactly, for both
     targets, mixed codebook sizes and mixed alpha/non-alpha files."""
-    from basisu_rs_tpu.models import Etc1sCorpusTranscoder, Etc1sMultiCorpusTranscoder
+    from basisu_rs_jax.models import Etc1sCorpusTranscoder, Etc1sMultiCorpusTranscoder
 
     rng = np.random.default_rng(42)
     files = [
@@ -138,8 +138,8 @@ def test_multifile_etc1s_matches_per_file():
 
 
 def test_multifile_etc1s_alpha_mismatch_raises():
-    from basisu_rs_tpu.api import BasisError
-    from basisu_rs_tpu.models import Etc1sFileWork, Etc1sMultiCorpusTranscoder
+    from basisu_rs_jax.api import BasisError
+    from basisu_rs_jax.models import Etc1sFileWork, Etc1sMultiCorpusTranscoder
 
     rng = np.random.default_rng(3)
     fw = _rand_etc1s_file(rng, 9, 9, (8,), alpha=True)
@@ -155,8 +155,8 @@ def test_multifile_etc1s_empty_and_selector_mismatch():
     """ADVICE r4: empty corpus returns [] for every target (no concatenate
     crash); a mismatched alpha SELECTOR stream (a[1]) raises the same
     BasisError as a mismatched endpoint stream."""
-    from basisu_rs_tpu.api import BasisError
-    from basisu_rs_tpu.models import Etc1sMultiCorpusTranscoder
+    from basisu_rs_jax.api import BasisError
+    from basisu_rs_jax.models import Etc1sMultiCorpusTranscoder
 
     for target in ("rgba", "etc1"):
         assert Etc1sMultiCorpusTranscoder(target).transcode_files([]) == []
@@ -176,7 +176,7 @@ def test_multifile_etc1s_zero_slice_files():
     """A file with no slices answers [] (it must not reach the batcher's
     np.concatenate), both alone and mixed with files that have work —
     outputs for the working files are unaffected and stay in input order."""
-    from basisu_rs_tpu.models import (
+    from basisu_rs_jax.models import (
         Etc1sCorpusTranscoder,
         Etc1sFileWork,
         Etc1sMultiCorpusTranscoder,
@@ -198,41 +198,26 @@ def test_multifile_etc1s_zero_slice_files():
             np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
-def test_multifile_etc1s_codebook_budget_split():
-    """Launch groups are bounded by MAX_BATCH_CODEBOOK_ENTRIES: a corpus
-    whose concatenated codebooks exceed the cap splits into several
-    launches with bit-identical results, and an oversized single file rides
-    alone (ADVICE r4: bound gather cost / VMEM for large corpora)."""
-    from basisu_rs_tpu.models import Etc1sCorpusTranscoder, Etc1sMultiCorpusTranscoder
-    from basisu_rs_tpu.models.transcoder import _split_by_codebook_budget
+def test_transcode_async_buckets_group_sizes(golden):
+    """Group sizes pad to power-of-two buckets (as dispatch.transcode_blocks
+    does), so batches whose mode groups differ in size reuse one compiled
+    kernel per bucket instead of compiling per size."""
+    from basisu_rs_jax.models import UastcTranscoder
+    from basisu_rs_jax.ops.dispatch import _mode_kernel, block_modes
 
-    rng = np.random.default_rng(7)
-    files = [
-        _rand_etc1s_file(rng, 40, 8, (16, 5), alpha=False),
-        _rand_etc1s_file(rng, 50, 8, (24,), alpha=False),
-        _rand_etc1s_file(rng, 10, 8, (8,), alpha=False),
-        _rand_etc1s_file(rng, 90, 8, (12,), alpha=False),
-    ]
-    # Cap of 64 endpoint entries: files of E=40,50,10,90 must split into
-    # [40], [50, 10], [90] (the 90 exceeds the cap alone but still rides).
-    groups = _split_by_codebook_budget(files, cap=64)
-    assert [[np.asarray(fw.endpoints).shape[0] for fw in g] for g in groups] == [
-        [40], [50, 10], [90]
-    ]
-
-    tr = Etc1sMultiCorpusTranscoder("rgba")
-    import basisu_rs_tpu.models.transcoder as tmod
-
-    orig = tmod.MAX_BATCH_CODEBOOK_ENTRIES
-    try:
-        tmod.MAX_BATCH_CODEBOOK_ENTRIES = 64
-        split = tr.transcode_files(files)
-    finally:
-        tmod.MAX_BATCH_CODEBOOK_ENTRIES = orig
-    for fw, got_slices in zip(files, split):
-        want = Etc1sCorpusTranscoder(fw.endpoints, fw.selectors, "rgba").transcode_slices(fw.slices)
-        for g, w in zip(got_slices, want):
-            np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    blocks = golden["bc7_in"][block_modes(golden["bc7_in"]) == 3]  # 32 blocks
+    tr = UastcTranscoder("bc7")
+    kernel = _mode_kernel("bc7", 3)
+    tr.transcode(blocks[:9])  # first use of the 16-block bucket
+    before = kernel._cache_size()
+    for n in (10, 13, 16):
+        res = tr.transcode_async(blocks[:n])
+        ((_, m, o, _),) = res.groups
+        assert m == n and o.shape == (16, 4)
+        out, err = res.gather()
+        assert not err.any()
+        np.testing.assert_array_equal(out, golden["bc7_out"][block_modes(golden["bc7_in"]) == 3][:n])
+    assert kernel._cache_size() == before
 
 
 def test_multifile_etc1s_device_resident():
@@ -240,7 +225,7 @@ def test_multifile_etc1s_device_resident():
     with values identical to the host path."""
     import jax
 
-    from basisu_rs_tpu.models import Etc1sMultiCorpusTranscoder
+    from basisu_rs_jax.models import Etc1sMultiCorpusTranscoder
 
     rng = np.random.default_rng(11)
     files = [_rand_etc1s_file(rng, 17, 11, (24, 6), alpha=False)]

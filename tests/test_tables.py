@@ -4,9 +4,9 @@ cross-checks between the scalar and vectorized dequantization paths."""
 
 import numpy as np
 
-from basisu_rs_tpu.container.basis import Header, SliceDesc
-from basisu_rs_tpu.container.crc import crc16
-from basisu_rs_tpu.tables import (
+from basisu_rs_jax.container.basis import Header, SliceDesc
+from basisu_rs_jax.container.crc import crc16
+from basisu_rs_jax.tables import (
     BISE_RANGES,
     MODES,
     bc7_mode_5_optimal_endpoints,
@@ -48,7 +48,7 @@ def test_bc7_mode6_optimal_endpoints_err_structure():
 
 
 def test_unquant_endpoint_scalar_vs_vectorized():
-    from basisu_rs_tpu.ops.uastc_decode import unquant_endpoint
+    from basisu_rs_jax.ops.uastc_decode import unquant_endpoint
     import jax.numpy as jnp
 
     for ri, rng in enumerate(BISE_RANGES):
@@ -61,7 +61,7 @@ def test_unquant_endpoint_scalar_vs_vectorized():
 
 
 def test_weight_unquant_formulas_match_reference_luts():
-    from basisu_rs_tpu.ops.uastc_decode import unquant_weight
+    from basisu_rs_jax.ops.uastc_decode import unquant_weight
     import jax.numpy as jnp
 
     luts = {
@@ -78,7 +78,7 @@ def test_weight_unquant_formulas_match_reference_luts():
 
 
 def test_bc7_weight_remap_matches_reference_luts():
-    from basisu_rs_tpu.ops.bc7 import remap_weight_to_bc7
+    from basisu_rs_jax.ops.bc7 import remap_weight_to_bc7
     import jax.numpy as jnp
 
     cases = {
@@ -156,8 +156,8 @@ def test_xq_mulshift_constants_exhaustive():
     never materialized in the search."""
     import numpy as np
 
-    from basisu_rs_tpu.ops.bc7 import _XQ_MULSHIFT
-    from basisu_rs_tpu.tables.bc7_tables import pbit_luts
+    from basisu_rs_jax.ops.bc7 import _XQ_MULSHIFT
+    from basisu_rs_jax.tables.bc7_tables import pbit_luts
 
     e = np.arange(256, dtype=np.int64)
     for tb, ((K1, S1), (K0, B0, S0)) in _XQ_MULSHIFT.items():
@@ -184,7 +184,7 @@ def test_scale_ep_mulshift_exhaustive():
     (bc7.rs:262-272), with int31-safe products."""
     import numpy as np
 
-    from basisu_rs_tpu.ops.bc7 import _SCALE_EP_MULSHIFT
+    from basisu_rs_jax.ops.bc7 import _SCALE_EP_MULSHIFT
 
     e = np.arange(256, dtype=np.int64)
     for nbits, (K, B, S) in _SCALE_EP_MULSHIFT.items():
@@ -201,7 +201,7 @@ def test_pbit_unique_error_terms_are_integers():
     fold is bit-equivalent to integer arithmetic."""
     import numpy as np
 
-    from basisu_rs_tpu.tables.bc7_tables import pbit_luts
+    from basisu_rs_jax.tables.bc7_tables import pbit_luts
 
     v = np.arange(256)
     # fl(fl(v/255) * 255) == v exactly (IEEE single)
@@ -252,7 +252,7 @@ def test_etc1_selector_boolean_forms():
     import jax.numpy as jnp
     import numpy as np
 
-    from basisu_rs_tpu.ops.etc import selector_ms_ls
+    from basisu_rs_jax.ops.etc import selector_ms_ls
 
     for c1, c2, c3 in [(0, 0, 0), (1, 0, 0), (1, 1, 0), (1, 1, 1)]:
         sel = jnp.asarray([c1 + c2 + c3])
@@ -269,7 +269,7 @@ def test_eac_rank_selector_matches_packed_min():
     clipping-induced duplicate-run shape."""
     import numpy as np
 
-    from basisu_rs_tpu.tables import np_tables
+    from basisu_rs_jax.tables import np_tables
 
     mods = np_tables()["ETC2_ALPHA_MODIFIERS"]
     perm = [3, 2, 1, 0, 4, 5, 6, 7]
@@ -381,8 +381,8 @@ def test_bc7_anchor_msb_statically_zero():
     single-subset modes."""
     import numpy as np
 
-    from basisu_rs_tpu.ops.bc7 import remap_weight_to_bc7
-    from basisu_rs_tpu.tables import BC7_MODES, MODES, np_tables
+    from basisu_rs_jax.ops.bc7 import remap_weight_to_bc7
+    from basisu_rs_jax.tables import BC7_MODES, MODES, np_tables
 
     t = np_tables()
     pairs = set()
@@ -407,8 +407,8 @@ def test_remap_preserves_msb():
     a per-pattern bit position."""
     import numpy as np
 
-    from basisu_rs_tpu.ops.bc7 import remap_weight_to_bc7
-    from basisu_rs_tpu.tables import BC7_MODES, MODES, np_tables
+    from basisu_rs_jax.ops.bc7 import remap_weight_to_bc7
+    from basisu_rs_jax.tables import BC7_MODES, MODES, np_tables
 
     t = np_tables()
     pairs = set()
@@ -430,7 +430,7 @@ def test_bc7_inv_relpos_matches_decoded_weights():
     against UASTC-anchor coincidence."""
     import numpy as np
 
-    from basisu_rs_tpu.tables import (
+    from basisu_rs_jax.tables import (
         MODES,
         fam_anchors_before,
         fam_bc7_inv_relpos_packed,
@@ -460,8 +460,8 @@ def test_bc7_weight_remap_range():
     (backs the mask-free weight emission in ops/bc7.py)."""
     import numpy as np
 
-    from basisu_rs_tpu.ops.bc7 import remap_weight_to_bc7
-    from basisu_rs_tpu.tables import BC7_MODES, MODES, np_tables
+    from basisu_rs_jax.ops.bc7 import remap_weight_to_bc7
+    from basisu_rs_jax.tables import BC7_MODES, MODES, np_tables
 
     t = np_tables()
     for cfg in MODES:

@@ -9,10 +9,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import pytest
 
-native = pytest.importorskip("basisu_rs_tpu.native")
+native = pytest.importorskip("basisu_rs_jax.native")
 
-from basisu_rs_tpu.container.basis import read_header, read_slice_descs
-from basisu_rs_tpu.container.writer import write_etc1s_basis_fuzz
+from basisu_rs_jax.container.basis import read_header, read_slice_descs
+from basisu_rs_jax.container.writer import write_etc1s_basis_fuzz
 
 
 @pytest.fixture(scope="module")
@@ -112,7 +112,7 @@ def _measure_ratio(models, nbx, nby, data, reps=8):
     best-of-N finds an uninterrupted window for both sides even on a fully
     contended core; mismatched lengths were measured to skew the ratio 2x).
     Machine speed divides out."""
-    from basisu_rs_tpu.native import calib_native
+    from basisu_rs_jax.native import calib_native
 
     n = nbx * nby
     CAL = 50_000  # ~0.35 ms: same region length as one slice decode
@@ -139,8 +139,7 @@ def test_native_decode_contention_aware_ratio_guard(slice_setup):
     0.68-0.75 quiet AND under a spinning competitor process.
 
     The operating band derives from a PER-MACHINE pinned quiet ratio
-    (tests/perf_band.py, cached in .jax_cache/ like the Pallas tile
-    autotune - round-4 verdict item 7): floor = 0.63 x quiet, so any
+    (tests/perf_band.py, cached in .jax_cache/): floor = 0.63 x quiet, so any
     in-band measurement halves to below the floor and a genuine 2x decode
     slowdown trips under ANY contention level.  A measurement above the
     ceiling (legitimate speedup or new hardware) re-measures and RE-PINS

@@ -12,7 +12,7 @@ per-target convert_block_from_uastc writers.
 import numpy as np
 import pytest
 
-from basisu_rs_tpu.ops import transcode_blocks
+from basisu_rs_jax.ops import transcode_blocks
 
 from oracle_uastc import (
     OracleUastcError,
@@ -86,8 +86,8 @@ def test_all_modes_fn_matches_partitioned_fuzz(target):
     oracle - on random blocks including invalid ones."""
     import jax.numpy as jnp
 
-    from basisu_rs_tpu.ops.bits import bytes_from_lanes_np, lanes_from_bytes_np
-    from basisu_rs_tpu.ops.dispatch import transcode_all_modes_fn
+    from basisu_rs_jax.ops.bits import bytes_from_lanes_np, lanes_from_bytes_np
+    from basisu_rs_jax.ops.dispatch import transcode_all_modes_fn
 
     rng = np.random.default_rng(0xA11)
     blocks = rng.integers(0, 256, size=(512, 16), dtype=np.uint8)

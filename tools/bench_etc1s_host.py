@@ -4,8 +4,8 @@
 
 This is the host side of the ETC1S pipeline budget: the sequential
 prediction/entropy state machine runs one slice per core while the device
-kernels (ops/etc1s_pallas.py) consume the emitted index tensors at
-multi-Gblk/s per chip.  Run before/after native/etc1s.cpp changes:
+kernels (ops/etc1s.py) consume the emitted index tensors.  Run before/after
+native/etc1s.cpp changes:
 
     python tools/bench_etc1s_host.py [--blocks 1048576] [--reps 5]
 """
@@ -24,9 +24,9 @@ sys.path.insert(0, str(Path(__file__).parent.parent))
 
 def make_slice(nbx: int, nby: int, e: int = 512, s: int = 384, hist: int = 32,
                seed: int = 9):
-    from basisu_rs_tpu.container.basis import read_header, read_slice_descs
-    from basisu_rs_tpu.container.writer import write_etc1s_basis_fuzz
-    from basisu_rs_tpu import native
+    from basisu_rs_jax.container.basis import read_header, read_slice_descs
+    from basisu_rs_jax.container.writer import write_etc1s_basis_fuzz
+    from basisu_rs_jax import native
 
     rng = np.random.default_rng(seed)
     endpoints = np.zeros((e, 4), np.uint8)

@@ -1,26 +1,20 @@
 #!/usr/bin/env python
 """Jaxpr equation counts for the per-mode transcode lane functions.
 
-Re-derives the roofline op-count table at HEAD (round-4 verdict item 2: the
-BUILD_STATUS table was a round-2 snapshot).  For each (target, mode) the
-lane function is traced exactly as the Pallas kernels run it - constant
-tables discovered in `table_mode("collect")` and passed as real inputs in
-`table_mode("provide")` - and the closed jaxpr's equations are counted,
-excluding shape/dtype plumbing (convert_element_type, reshape,
-broadcast_in_dim, squeeze) that lowers to no VPU work.
+The op side of a kernel roofline.  For each (target, mode) the lane
+function is traced exactly as ops/dispatch._mode_kernel runs it, and the
+closed jaxpr's equations are counted, excluding shape/dtype plumbing
+(convert_element_type, reshape, broadcast_in_dim, squeeze) that lowers to
+no arithmetic.  Every counted equation is elementwise over the block axis,
+so the count is element-ops per block.
 
---stages attributes every equation to the innermost basisu_rs_tpu source
+--stages attributes every equation to the innermost basisu_rs_jax source
 line via jaxpr source_info and buckets them by the per-target stage line
 ranges below, giving the per-stage irreducibility tables without touching
 shipped code.
 
 ETC1S kernels: targets named `etc1s_<kind>` (kind in rgba, alpha, etc1,
-rgba_alpha) count the REAL pallas_call inner jaxpr at the shipped tile.
-The chunked codebook gathers are O(chunks); `--chunks N` sets the codebook
-size in 128-entry chunks (default 16 = the bench's 2048-entry codebooks).
-Eqn normalization matches the UASTC tables: every counted eqn is
-elementwise over the whole [rows, 128] block tile, so the count IS
-element-ops per block regardless of tile rows.
+rgba_alpha) count the ops/etc1s kernel of that kind per block.
 
 Usage:
   python tools/count_eqns.py                  # per-mode counts, all targets
@@ -29,7 +23,7 @@ Usage:
   python tools/count_eqns.py --mix            # bench-mix weighted means
                                                # (the golden corpus tiles 32
                                                # blocks x 19 modes uniformly)
-  python tools/count_eqns.py etc1s_rgba --chunks 16   # ETC1S kernel body
+  python tools/count_eqns.py etc1s_rgba       # ETC1S kernel body
 """
 
 from __future__ import annotations
@@ -42,17 +36,15 @@ sys.path.insert(0, str(Path(__file__).parent.parent))
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")  # trace-only: never touch the TPU
+jax.config.update("jax_platforms", "cpu")  # trace-only: no device needed
 
-import jax.numpy as jnp
 import numpy as np
 
-from basisu_rs_tpu.ops import bits
-from basisu_rs_tpu.ops.pallas_kernels import LANE, _lane_fn
-from basisu_rs_tpu.tables import MODES
+from basisu_rs_jax.ops.dispatch import _REGISTRY, _ensure_registered
+from basisu_rs_jax.tables import MODES
 
 ROWS = 8
-# Primitives that lower to layout/dtype plumbing, not VPU ALU issue.
+# Primitives that lower to layout/dtype plumbing, not arithmetic.
 FREE = {"convert_element_type", "reshape", "broadcast_in_dim", "squeeze"}
 
 
@@ -91,14 +83,14 @@ def _count_jaxpr(jaxpr) -> Counter:
 
 
 def _pkg_frame(eqn, want: str = "line"):
-    """Innermost basisu_rs_tpu frame that created eqn, as
+    """Innermost basisu_rs_jax frame that created eqn, as
     (file, line) for want='line', (file, function) for want='func'."""
     tb = eqn.source_info.traceback
     if tb is None:
         return ("?", 0)
     for frame in tb.frames:  # innermost first
         fn = frame.file_name
-        if "basisu_rs_tpu" in fn:
+        if "basisu_rs_jax" in fn:
             if want == "func":
                 return (Path(fn).name, frame.function_name)
             return (Path(fn).name, frame.line_num)
@@ -106,35 +98,16 @@ def _pkg_frame(eqn, want: str = "line"):
 
 
 def trace_mode(target: str, mode_id: int):
-    """Closed jaxpr of the lane function with tables as inputs."""
+    """Closed jaxpr of the lane function over a [ROWS, 4] lane batch."""
     # JAX caches traced library-internal implementations process-wide with
     # the source_info of their FIRST call site; without this, a later
     # trace's equations attribute to whichever earlier (target, mode)
-    # first exercised the same jnp op shapes (observed: etc.py lines
-    # showing up in a pure-rgba trace).
+    # first exercised the same jnp op shapes.
     jax.clear_caches()
-    fn, _ = _lane_fn(target)
+    _ensure_registered()
+    fn, _ = _REGISTRY[target]
     cfg = MODES[mode_id]
-    collected: dict = {}
-    dummy = tuple(
-        jax.ShapeDtypeStruct((ROWS, LANE), jnp.uint32) for _ in range(4)
-    )
-    with bits.table_mode("collect", collected):
-        jax.eval_shape(lambda lanes: fn(cfg, lanes), dummy)
-    keys = list(collected.keys())
-    tables = [np.asarray(bits.pad_table_for_kernel(collected[k])) for k in keys]
-
-    def wrapped(lanes, *tabs):
-        with bits.table_mode("provide", dict(zip(keys, tabs))):
-            return fn(cfg, lanes)
-
-    # the collect pass above primes the same implementation caches (its
-    # jnp.take shares the cached gather trace with provide-mode
-    # take_along_axis): clear again so provide-mode eqns attribute to
-    # provide-mode call sites
-    jax.clear_caches()
-    zeros = tuple(np.zeros((ROWS, LANE), np.uint32) for _ in range(4))
-    return jax.make_jaxpr(wrapped)(zeros, *tables).jaxpr
+    return jax.make_jaxpr(lambda lanes: fn(cfg, lanes))(np.zeros((ROWS, 4), np.uint32)).jaxpr
 
 
 def eqns_for(target: str, mode_id: int) -> int:
@@ -142,39 +115,17 @@ def eqns_for(target: str, mode_id: int) -> int:
     return sum(n for prim, n in c.items() if prim not in FREE)
 
 
-def trace_etc1s(kind: str, chunks: int):
-    """Closed jaxpr of the ETC1S pallas kernel (inner jaxpr of the
-    pallas_call eqn, reached through _iter_eqns' param recursion) at the
-    shipped per-kind tile with `chunks`-chunk endpoint/selector codebooks."""
+def eqns_for_etc1s(kind: str) -> int:
+    """Non-FREE eqns per block of the ops/etc1s kernel of `kind`."""
+    from basisu_rs_jax.ops.etc1s import KERNELS
+
     jax.clear_caches()
-    from basisu_rs_tpu.ops.etc1s_pallas import (
-        N_IDX,
-        _build,
-        _packed_mods_np,
-        rows_for_kind,
-    )
-
-    rows = rows_for_kind(kind)
-    call = _build(kind, chunks, chunks, rows, False)
-    tab = np.zeros((chunks, 128), np.uint32)
-    idx = np.zeros((rows, LANE), np.int32)
-    mods = np.asarray(bits.pad_table_for_kernel(_packed_mods_np()))
-    args = [tab, tab] + [idx] * N_IDX[kind] + [mods]
-    return jax.make_jaxpr(lambda *a: call(*a))(*args).jaxpr
-
-
-def eqns_for_etc1s(kind: str, chunks: int) -> tuple[int, int]:
-    """(total non-FREE eqns per block, eqns inside gather_chunked)."""
-    jaxpr = trace_etc1s(kind, chunks)
-    total = gather = 0
-    for eqn in _iter_eqns(jaxpr):
-        if eqn.primitive.name in FREE:
-            continue
-        total += 1
-        f, fn = _pkg_frame(eqn, "func")
-        if fn == "gather_chunked":
-            gather += 1
-    return total, gather
+    fn, _ = KERNELS[kind]
+    book = np.zeros((16, 4), np.uint8)
+    table = np.zeros(16, np.uint32) if kind == "etc1" else book
+    idx = [np.zeros(ROWS, np.int32)] * (4 if kind == "rgba_alpha" else 2)
+    jaxpr = jax.make_jaxpr(fn)(book, table, *idx).jaxpr
+    return sum(1 for eqn in _iter_eqns(jaxpr) if eqn.primitive.name not in FREE)
 
 
 # Per-target stage buckets: (stage name, file, [inclusive line ranges]).
@@ -211,20 +162,9 @@ def stage_table(target: str, mode_id: int, granularity: str = "file"):
 
 
 def main(argv):
-    if "--chunks" in argv:
-        i = argv.index("--chunks")
-        chunks = int(argv[i + 1])
-        argv = argv[:i] + argv[i + 2 :]
-    else:
-        chunks = 16  # the bench's 2048-entry codebooks
     etc1s = [a for a in argv if a.startswith("etc1s_")]
     for t in etc1s:
-        kind = t[len("etc1s_"):]
-        total, gather = eqns_for_etc1s(kind, chunks)
-        print(
-            f"{t}: {total} eqns/blk at {chunks} codebook chunks "
-            f"({gather} in chunked gathers, {total - gather} body)"
-        )
+        print(f"{t}: {eqns_for_etc1s(t[len('etc1s_'):])} eqns/blk")
     argv = [a for a in argv if a not in etc1s]
     if etc1s and not [a for a in argv if not a.startswith("--")]:
         return

@@ -9,7 +9,7 @@ the reference sources (/root/reference/src/*.rs) once, as *data*, and emit a
 generated Python module so the numbers can't be mistyped.
 
 Run:  python tools/extract_tables.py
-Writes: basisu_rs_tpu/tables/generated_tables.py
+Writes: basisu_rs_jax/tables/generated_tables.py
 """
 
 import re
@@ -17,7 +17,7 @@ import sys
 from pathlib import Path
 
 REF = Path("/root/reference/src")
-OUT = Path(__file__).resolve().parent.parent / "basisu_rs_tpu" / "tables" / "generated_tables.py"
+OUT = Path(__file__).resolve().parent.parent / "basisu_rs_jax" / "tables" / "generated_tables.py"
 
 
 def read(relpath: str) -> str:
